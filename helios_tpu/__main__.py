@@ -12,13 +12,15 @@ import sys
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
 
+    from helios_tpu.compile_cache import enable_compile_cache
     from helios_tpu.config import config_from_cli
     from helios_tpu import pipeline
 
+    enable_compile_cache()
     cfg_raw = config_from_cli(argv, finalize=False)
     if cfg_raw.planet_ensemble_file:
         # planet-ensemble mode: one batched device program for N planets
-        # (the TPU data-parallel axis the single-GPU reference lacks,
+        # (the data-parallel axis the single-GPU reference lacks,
         # SURVEY.md section 2.4)
         from helios_tpu.parallel import ensemble as ens
 

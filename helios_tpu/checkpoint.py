@@ -8,7 +8,7 @@ so a resumed run re-converges from scratch.  Here the full restartable
 radiation-loop state (temperatures, fluxes, per-layer prefactors,
 T_store, relaxed criterion, counters) is serialized every N iterations,
 so a preempted job continues exactly where it stopped -- the standard
-requirement for large TPU fleets where preemption is routine.
+requirement for shared GPU clusters where preemption is routine.
 
 Format: a single ``.npz`` written atomically (tmp file + rename).  The
 non-restartable members of RadLoopState (cell cache, band totals) are

@@ -248,8 +248,7 @@ def mean_molecular_mass(sset: SpeciesSet, T, p):
 
 
 def mixed_opacities(sset: SpeciesSet, T, p, wave_centers, gauss_weight,
-                    gauss_y, *, ro_method: int, scat: int,
-                    use_pallas: bool = False):
+                    gauss_y, *, ro_method: int, scat: int):
     """One full mixing pass: (T, p) profile -> (opac [n,B,Y], scat [n,B],
     meanmolmass [n]) (computation.py:1454-1501).
 
@@ -274,7 +273,7 @@ def mixed_opacities(sset: SpeciesSet, T, p, wave_centers, gauss_weight,
             opac = mix_ops.add_species_opacity(
                 opac, opac_spec, vmr, spec.mass, meanmolmass,
                 gauss_weight, gauss_y, species_index=s,
-                ro_method=ro_method, use_pallas=use_pallas)
+                ro_method=ro_method)
 
         if spec.scattering and scat:
             if spec.name == "H2O":

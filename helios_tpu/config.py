@@ -155,12 +155,12 @@ class HeliosConfig:
     add_heating_file_press_name: str = "Pressure"
     add_heating_file_press_unit: str = "cgs"
 
-    # === TPU-specific (new in this framework) ===
+    # === new in this framework ===
     dtype: str = ""                 # resolved from precision
-    n_spectral_shards: int = 1      # ICI shards of the lambda x y grid
+    n_spectral_shards: int = 1      # device shards of the lambda x y grid
     n_planet_batch: int = 1         # planet-ensemble data-parallel batch
     planet_ensemble_file: str = ""  # per-planet override table (ensemble)
-    use_pallas: Union[str, int] = "auto"  # auto, yes, no
+    use_pallas: Union[str, int] = "auto"  # GPU sweep kernel: auto, yes, no
     chunk_iters: int = 100          # device-resident iterations per host sync
     checkpoint_every: int = 0       # iterations per checkpoint (0 = off)
     checkpoint_path: str = ""       # default: <output_dir>/<name>/restart.ckpt.npz
@@ -624,8 +624,8 @@ _CLI_FLAGS = [
 
 def build_arg_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog="helios-tpu",
-        description="HELIOS-TPU: TPU-native radiative transfer in "
+        prog="python -m helios_tpu",
+        description="HELIOS in JAX: two-stream radiative transfer in "
                     "radiative-convective equilibrium.")
     ap.add_argument("-parameter_file", default="param.dat",
                     help="path to a param.dat-format parameter file")

@@ -20,7 +20,7 @@ from __future__ import annotations
 import os
 
 PARAM_TEMPLATE = """### ### ######################### ### ###
-### ### PARAMETERS FOR HELIOS-TPU ### ###
+### ### PARAMETERS FOR HELIOS ### ###
 ### ### ######################### ### ###
 
 This file uses the reference param.dat format; every key can be

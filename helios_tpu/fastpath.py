@@ -1,12 +1,10 @@
 """Flat-layout fast path: the per-iteration compute pipeline on [.., S]
 arrays, S = nbin * ny.
 
-On TPU, arrays tile their last two logical dimensions onto (sublane, lane)
-= (8, 128) vector registers; with the reference-shaped [layer, bin, y]
-arrays the y axis (20 points) sits in the 128-wide lane dimension, wasting
-84% of every vector op.  Flattening the spectral axes to S = bin*y and
-keeping the whole hot path in that layout is worth ~20x on the sweep
-(measured: 0.82 ms -> 0.036 ms per 4-pass solve at 105x385x20 fp32).
+Flattening the spectral axes to S = bin*y gives every per-layer operation
+one long contiguous axis of independent columns, instead of a short
+trailing y axis of 20 points; the sweep kernels give one lane to each
+column of it.
 
 The modules in ops/ keep the reference-shaped [L, B, Y] implementations --
 they are the tested oracle; everything here is verified against them.
@@ -117,15 +115,11 @@ def fdir_iso_flat(planck_star_flat, delta_tau_tot, mu_weights, *,
     zenith-corrected path (ops.beam._mu_star_matrix logic), or ``None``
     for plain mu*: the exponent then degenerates to a cumulative sum
     over layers -- O(L) instead of the O(L^2) per-interface loop of the
-    reference (fdir_iso, kernels.cu:1296-1307), and avoids the fp64
-    dot_general XLA would emit for the masked-matrix form (~25x slower
-    than VPU elementwise on TPU)."""
+    reference (fdir_iso, kernels.cu:1296-1307)."""
     I_dir = (R_star / a) ** 2 * pc.PI * planck_star_flat   # [S]
     if mu_weights is None:
         expo = _rev_cumsum_above(delta_tau_tot) / mu_star
     else:
-        # mul+sum, NOT einsum: an fp64 dot_general is emulated ~25x
-        # slower on TPU than a fused broadcast-multiply reduction
         expo = jnp.sum(mu_weights[:, :, None] * delta_tau_tot[None, :, :],
                        axis=1)
     F0 = -dir_beam * mu_star * I_dir
@@ -149,7 +143,6 @@ def fdir_noniso_flat(planck_star_flat, dtau_up, dtau_low, mu_weights,
         Fc_dir = F0[None, :] * jnp.exp((above[1:] + dtau_up) / mu_star)
         return F_dir, Fc_dir
 
-    # mul+sum, NOT einsum (fp64 dot_general is emulated ~25x slower)
     expo_full = jnp.sum(mu_weights[:, :, None] * dtau_full[None, :, :],
                         axis=1)
     F_dir = F0[None, :] * jnp.exp(expo_full)
@@ -221,8 +214,7 @@ class IsoCoeffCache(NamedTuple):
       src_down = planck_coeff * B_lay + dir_down
       src_up   = planck_coeff * B_lay + dir_up
       boa_emis = boa_coeff * B_surf
-    This keeps the slow XLA-emulated-fp64 elementwise work out of the
-    per-iteration hot loop.
+    This keeps the coefficient pipeline out of the per-iteration hot loop.
     """
     a: jnp.ndarray             # P/M                       [L, S]
     b_nm: jnp.ndarray          # -N/M                      [L, S]
@@ -277,107 +269,17 @@ def iso_coeffs_from_cache(cc: IsoCoeffCache, planck_lay_flat,
         toa=cc.toa)
 
 
-def pairs_coeff_active(phys) -> bool:
-    """True when the coefficient cache is stored as stacked df64 pairs:
-    the pairs-native Pallas iteration path (fp64 runs, iterative method).
-
-    Must be consistent everywhere a CellCache is built or its sharding
-    spec derived -- it changes the coeff leaves' shapes ([...]->[2,...])."""
-    return (phys.pallas_active and phys.dtype == "float64"
-            and phys.flux_calc_method == "iteration")
-
-
-def split_coeff_cache(coeff):
-    """Coefficient cache -> same NamedTuple with every leaf split into a
-    stacked [2, ...] float32 (hi, lo) pair.
-
-    Done once per cell-cache refresh so the per-iteration solve never
-    touches XLA-emulated fp64: sources are assembled with df64 fmas and
-    fed straight to the pairs-native Pallas kernels."""
-    from helios_tpu.ops import df64
-
-    def sp(x):
-        d = df64.split(x)
-        return jnp.stack([d.hi, d.lo])
-
-    return type(coeff)(*(sp(x) for x in coeff))
-
-
-def _df(stacked):
-    from helios_tpu.ops import df64
-    return df64.DF(stacked[0], stacked[1])
-
-
-def _band_to_flat_df(p, ny):
-    from helios_tpu.ops import df64
-    return df64.DF(band_to_flat(p.hi, ny), band_to_flat(p.lo, ny))
-
-
-def iso_solve_pairs(cc, B_lay_df, B_surf_df, F_dir0, F_up_prev, ny, *,
-                    n_passes: int):
-    """Pairs-native iso flux solve: cc is a split IsoCoeffCache
-    ([2, ...] leaves), B_* are ops.df64.DF [L, B] / [1, B] Planck pairs,
-    F_dir0/F_up_prev fp64.  Returns (F_down, F_up) fp64 [I, S]."""
-    from helios_tpu.kernels.sweep_pallas import fused_iso_sweep_df64_pairs
-    from helios_tpu.ops import df64
-
-    pc_ = _df(cc.planck_coeff)
-    Bl = _band_to_flat_df(B_lay_df, ny)
-    src_down = df64.fma(pc_, Bl, _df(cc.dir_down))
-    src_up = df64.fma(pc_, Bl, _df(cc.dir_up))
-    Bs = _band_to_flat_df(df64.DF(B_surf_df.hi[0], B_surf_df.lo[0]), ny)
-    boa_emis = df64.mul(_df(cc.boa_coeff), Bs)
-
-    fd, fu = fused_iso_sweep_df64_pairs(
-        _df(cc.a), _df(cc.b_nm), src_down, src_up, _df(cc.toa),
-        _df(cc.boa_refl), boa_emis, df64.split(F_dir0),
-        df64.split(F_up_prev), n_passes=n_passes)
-    return (df64.combine(fd, jnp.float64), df64.combine(fu, jnp.float64))
-
-
-def noniso_solve_pairs(cc, B_lay_df, B_int_df, B_surf_df, F_dir0,
-                       F_up_prev, Fc_up_prev, ny, *, n_passes: int):
-    """Pairs-native non-iso flux solve: cc a split NonIsoCoeffCache,
-    B_int_df the DF interface Planck pairs [I, B].  Returns the four
-    fp64 flux arrays."""
-    from helios_tpu.kernels.sweep_pallas import (
-        fused_noniso_sweep_df64_pairs)
-    from helios_tpu.ops import df64
-
-    Bl = _band_to_flat_df(B_lay_df, ny)
-    Bb = _band_to_flat_df(df64.DF(B_int_df.hi[:-1], B_int_df.lo[:-1]), ny)
-    Ba = _band_to_flat_df(df64.DF(B_int_df.hi[1:], B_int_df.lo[1:]), ny)
-    Bs = _band_to_flat_df(df64.DF(B_surf_df.hi[0], B_surf_df.lo[0]), ny)
-
-    fma2 = lambda At, Bt, Ab, Bb_, D: df64.add(
-        df64.fma(_df(At), Bt, df64.mul(_df(Ab), Bb_)), _df(D))
-    src_ud = fma2(cc.At_ud, Bl, cc.Ab_ud, Ba, cc.D_ud)
-    src_uu = fma2(cc.At_uu, Ba, cc.Ab_uu, Bl, cc.D_uu)
-    src_ld = fma2(cc.At_ld, Bb, cc.Ab_ld, Bl, cc.D_ld)
-    src_lu = fma2(cc.At_lu, Bl, cc.Ab_lu, Bb, cc.D_lu)
-    boa_emis = df64.mul(_df(cc.boa_coeff), Bs)
-
-    out = fused_noniso_sweep_df64_pairs(
-        _df(cc.a_up), _df(cc.b_up), src_ud, src_uu,
-        _df(cc.a_low), _df(cc.b_low), src_ld, src_lu,
-        _df(cc.toa), _df(cc.boa_refl), boa_emis, df64.split(F_dir0),
-        df64.split(F_up_prev), df64.split(Fc_up_prev), n_passes=n_passes)
-    return tuple(df64.combine(p, jnp.float64) for p in out)
-
-
 def fband_iso_flat(C: FlatIsoCoeffs, F_dir0, F_up_prev, *, n_passes: int,
                    use_pallas: bool):
-    """Iterative iso solve on flat arrays; returns (F_down, F_up) [I, S]."""
+    """Iterative iso solve on flat arrays; returns (F_down, F_up) [I, S].
+
+    ``use_pallas``: run the fused GPU kernel (kernels/sweep_triton.py)
+    instead of the `lax.scan` form below."""
     if use_pallas:
-        from helios_tpu.kernels.sweep_pallas import (fused_iso_sweep,
-                                                     fused_iso_sweep_df64)
-        # Mosaic has no fp64: the double-precision path runs the fused
-        # kernel in df64 (two-float32) arithmetic, ~1e-13 vs the oracle
-        kernel = (fused_iso_sweep_df64 if C.a.dtype == jnp.float64
-                  else fused_iso_sweep)
-        return kernel(C.a, C.b_nm, C.src_down, C.src_up, C.toa,
-                      C.boa_refl, C.boa_emis, F_dir0, F_up_prev,
-                      n_passes=n_passes)
+        from helios_tpu.kernels import sweep_triton
+        return sweep_triton.iso_sweep(
+            C.a, C.b_nm, C.src_down, C.src_up, C.toa, C.boa_refl,
+            C.boa_emis, F_dir0, F_up_prev, n_passes=n_passes)
 
     toa = jnp.broadcast_to(C.toa, F_up_prev.shape[1:]).astype(
         F_up_prev.dtype)
@@ -631,13 +533,10 @@ def noniso_coeffs_from_cache(cc: NonIsoCoeffCache, B_lay, B_int_below,
 def fband_noniso_flat(C: FlatNonIsoCoeffs, F_dir0, F_up_prev, Fc_up_prev,
                       *, n_passes: int, use_pallas: bool = False):
     """Iterative non-iso solve (flat); returns (F_down, F_up, Fc_down,
-    Fc_up)."""
+    Fc_up).  ``use_pallas`` as in fband_iso_flat."""
     if use_pallas:
-        from helios_tpu.kernels.sweep_pallas import (fused_noniso_sweep,
-                                                     fused_noniso_sweep_df64)
-        kernel = (fused_noniso_sweep_df64 if C.a_up.dtype == jnp.float64
-                  else fused_noniso_sweep)
-        return kernel(
+        from helios_tpu.kernels import sweep_triton
+        return sweep_triton.noniso_sweep(
             C.a_up, C.b_up, C.src_up_down, C.src_up_up, C.a_low, C.b_low,
             C.src_low_down, C.src_low_up, C.toa, C.boa_refl, C.boa_emis,
             F_dir0, F_up_prev, Fc_up_prev, n_passes=n_passes)
@@ -690,12 +589,6 @@ def fband_noniso_flat(C: FlatNonIsoCoeffs, F_dir0, F_up_prev, Fc_up_prev,
 # --------------------------------------------------------------------------- #
 
 def gauss_band_flat(f_flat, gauss_weight):
-    """[.., S] -> [.., B]: 0.5 * sum_y w_y f.
-
-    Written as multiply + axis-sum, NOT einsum: at fp64 XLA lowers the
-    einsum to a dot_general that runs ~25x slower on TPU (no fp64 MXU);
-    the VPU elementwise+reduce form costs ~0.2 ms vs ~5 ms at the
-    reference workload size.
-    """
+    """[.., S] -> [.., B]: 0.5 * sum_y w_y f (multiply + axis-sum)."""
     ny = gauss_weight.shape[0]
     return 0.5 * jnp.sum(flat_to_cube(f_flat, ny) * gauss_weight, axis=-1)

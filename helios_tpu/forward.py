@@ -88,18 +88,19 @@ class Phys:
 
     @property
     def pallas_active(self) -> bool:
-        """Fused Pallas kernels: on for TPU backends (interpret mode on CPU
-        is only for correctness tests)."""
-        if self.use_pallas == "yes":
-            return True
+        """Whether the iterative flux solve runs the fused GPU sweep
+        kernels (kernels/sweep_triton.py) instead of XLA's `lax.scan`.
+
+        "auto" picks them on the GPU backend only; "yes" demands them and
+        raises on any other backend; "no" keeps the scan."""
         if self.use_pallas == "no":
             return False
-        # auto: on for real TPU backends -- the fused kernel runs the
-        # whole multi-pass recursion in VMEM (fp32 direct, fp64 via df64
-        # two-float arithmetic) ~14x faster than the lax.scan path.  Off
-        # on CPU, where Pallas only has the slow interpreter.
-        import jax as _jax
-        return _jax.default_backend() == "tpu"
+        on_gpu = jax.default_backend() == "gpu"
+        if self.use_pallas == "yes" and not on_gpu:
+            raise RuntimeError(
+                "use_pallas=yes needs the GPU backend, found "
+                f"{jax.default_backend()!r}")
+        return on_gpu
 
     @property
     def ninterface(self) -> int:
@@ -177,7 +178,6 @@ class ModelArrays(NamedTuple):
     gauss_weight: jnp.ndarray
     # radiation inputs
     planck_grid: jnp.ndarray       # [dim+1, B]
-    planck_grid_pairs: jnp.ndarray  # [2, dim+1, B] f32 (hi, lo) split
     starflux: jnp.ndarray          # [B]
     surf_albedo: jnp.ndarray       # [B]
     # clouds (zeros if inactive)
@@ -221,7 +221,7 @@ class CellCache(NamedTuple):
     # precomputed sweep coefficients (IsoCoeffCache / NonIsoCoeffCache):
     # everything of the flux-solve inputs that does not depend on the
     # current Planck arrays, so the per-iteration coefficient assembly
-    # is a handful of fmas instead of the full emulated-fp64 pipeline
+    # is a handful of fmas instead of the full coefficient pipeline
     coeff: tuple = ()
 
 
@@ -305,8 +305,6 @@ def build_model(cfg: HeliosConfig, table: OpacityTable,
         gauss_y=jnp.asarray(table.gauss_y, dt),
         gauss_weight=jnp.asarray(gauss_w, dt),
         planck_grid=planck_grid.astype(dt),
-        planck_grid_pairs=planck_mod.split_planck_grid(
-            planck_grid.astype(dt)),
         starflux=starflux,
         surf_albedo=jnp.asarray(surf_albedo, dt),
         cloud_abs_cross_lay=(jnp.asarray(cloud_result.abs_cross_lay, dt)
@@ -364,8 +362,7 @@ def _gas_properties(phys: Phys, m: ModelArrays, T, p, sset):
         from helios_tpu import chem
         return chem.mixed_opacities(
             sset, T, p, m.lambda_centers, m.gauss_weight, m.gauss_y,
-            ro_method=phys.ro_method, scat=phys.scat,
-            use_pallas=(phys.pallas_active and phys.dtype == "float64"))
+            ro_method=phys.ro_method, scat=phys.scat)
     opac, scat = interp_ops.interpolate_opacity(
         m.ktable, m.scat_cross_table, m.ktemps, m.kpress, T, p)
     mmm = interp_ops.interpolate_meanmolmass(
@@ -400,8 +397,7 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
 
     planckband_lay = planck_mod.planckband_layers(
         m.planck_grid, T_lay, m.starflux, real_star=phys.real_star,
-        dim=phys.plancktable_dim, step=phys.plancktable_step,
-        pairs=m.planck_grid_pairs)
+        dim=phys.plancktable_dim, step=phys.plancktable_step)
     planck_star_flat = fp.band_to_flat(planckband_lay[L], Y)
 
     # scattering on/off (kernels.cu scat flag): zero the cross sections
@@ -517,12 +513,6 @@ def compute_cells(phys: Phys, m: ModelArrays, T_lay, T_int,
     F_add_heat_lay = m.add_heat_dens * delta_z
     F_add_heat_sum = jnp.cumsum(F_add_heat_lay)
 
-    if fp.pairs_coeff_active(phys):
-        # store the coefficient cache as stacked (hi, lo) float32 pairs:
-        # the per-iteration solve then runs pairs-native (df64 fmas +
-        # pairs Pallas kernels) with no emulated-fp64 splits/combines
-        coeff = fp.split_coeff_cache(coeff)
-
     return CellCache(cells_or_upper=cells, lower=lower,
                      scat_trigger=scat_trigger, F_dir=F_dir, Fc_dir=Fc_dir,
                      meanmolmass_lay=mmm_lay, z_lay=z_lay,
@@ -559,40 +549,12 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
     Flat [.., S] layout throughout the iterative path; the matrix method
     reshapes to the reference layout around the tridiagonal solve."""
     from helios_tpu import fastpath as fp
-    from helios_tpu.ops import df64
 
     L, Y = phys.nlayer, phys.ny
 
-    # pairs-native path (fp64 + Pallas + iterative): Planck lookup,
-    # source assembly, and the sweep all stay in two-float32 pairs; the
-    # only fp64 arrays produced are the output fluxes
-    if fp.pairs_coeff_active(phys):
-        Bp = planck_mod.planckband_layers_df(
-            m.planck_grid_pairs, T_lay, m.starflux,
-            real_star=phys.real_star, dim=phys.plancktable_dim,
-            step=phys.plancktable_step)
-        B_lay_df = df64.DF(Bp.hi[:L], Bp.lo[:L])
-        B_surf_df = df64.DF(Bp.hi[L + 1:], Bp.lo[L + 1:])
-        if phys.iso:
-            F_down, F_up = fp.iso_solve_pairs(
-                cache.coeff, B_lay_df, B_surf_df, cache.F_dir[0],
-                flux_state.F_up, Y, n_passes=phys.n_sweep_passes)
-            return flux_state._replace(F_down=F_down, F_up=F_up)
-        T_int = interp_ops.interface_temperatures(T_lay)
-        B_int_df = planck_mod.planckband_interfaces_df(
-            m.planck_grid_pairs, T_int, dim=phys.plancktable_dim,
-            step=phys.plancktable_step)
-        F_down, F_up, Fc_down, Fc_up = fp.noniso_solve_pairs(
-            cache.coeff, B_lay_df, B_int_df, B_surf_df, cache.F_dir[0],
-            flux_state.F_up, flux_state.Fc_up, Y,
-            n_passes=phys.n_sweep_passes)
-        return FluxState(F_down=F_down, F_up=F_up, Fc_down=Fc_down,
-                         Fc_up=Fc_up)
-
     planckband_lay = planck_mod.planckband_layers(
         m.planck_grid, T_lay, m.starflux, real_star=phys.real_star,
-        dim=phys.plancktable_dim, step=phys.plancktable_step,
-        pairs=m.planck_grid_pairs)
+        dim=phys.plancktable_dim, step=phys.plancktable_step)
 
     common = dict(scat_corr=phys.scat_corr,
                   i2s_transition=phys.i2s_transition, epsi=phys.epsi,
@@ -615,15 +577,14 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
             Fd, Fu = thomas_ops.fband_matrix_iso(
                 _matrix_cells(cells, Y), planckband_lay,
                 fp.flat_to_cube(cache.F_dir, Y), m.surf_albedo,
-                fp.flat_to_cube(cache.scat_trigger[None], Y)[0],
-                use_pallas=phys.pallas_active, **common)
+                fp.flat_to_cube(cache.scat_trigger[None], Y)[0], **common)
             F_down, F_up = fp.cube_to_flat(Fd), fp.cube_to_flat(Fu)
         return flux_state._replace(F_down=F_down, F_up=F_up)
     else:
         T_int = interp_ops.interface_temperatures(T_lay)
         planckband_int = planck_mod.planckband_interfaces(
             m.planck_grid, T_int, dim=phys.plancktable_dim,
-            step=phys.plancktable_step, pairs=m.planck_grid_pairs)
+            step=phys.plancktable_step)
         upper, lower = cache.cells_or_upper, cache.lower
         if phys.flux_calc_method == "iteration":
             B_int_flat = fp.band_to_flat(planckband_int, Y)
@@ -641,8 +602,7 @@ def solve_fluxes(phys: Phys, m: ModelArrays, cache: CellCache, T_lay,
                 fp.flat_to_cube(cache.F_dir, Y),
                 fp.flat_to_cube(cache.Fc_dir, Y), m.surf_albedo,
                 fp.flat_to_cube(cache.scat_trigger[None], Y)[0],
-                delta_tau_limit=phys.delta_tau_limit,
-                use_pallas=phys.pallas_active, **common)
+                delta_tau_limit=phys.delta_tau_limit, **common)
             F_down, F_up, Fc_down, Fc_up = (fp.cube_to_flat(x)
                                             for x in res)
         return FluxState(F_down=F_down, F_up=F_up, Fc_down=Fc_down,
@@ -656,15 +616,13 @@ def integrate_flux_flat(phys: Phys, m: ModelArrays, flux_state: FluxState,
 
     ``axis_name``: mesh axis holding spectral shards (when called inside
     shard_map); the band->total reduction then psums the partial sums
-    across chips -- the only collective in the whole RCE iteration
-    (SURVEY.md section 2.4: band integrals ride ICI, all other physics is
-    bin-local).
+    across devices -- the only collective in the whole RCE iteration
+    (SURVEY.md section 2.4: all other physics is bin-local).
     """
     from helios_tpu import fastpath as fp
     F_down_band = fp.gauss_band_flat(flux_state.F_down, m.gauss_weight)
     F_up_band = fp.gauss_band_flat(flux_state.F_up, m.gauss_weight)
     F_dir_band = fp.gauss_band_flat(F_dir_flat, m.gauss_weight)
-    # multiply + sum, not einsum: fp64 dot_general is ~25x slower on TPU
     F_up_tot = jnp.sum(F_up_band * m.delta_lambda, axis=-1)
     F_down_tot = jnp.sum((F_dir_band + F_down_band) * m.delta_lambda,
                          axis=-1)
@@ -684,7 +642,7 @@ def forward_fluxes(phys: Phys, m: ModelArrays, T_lay,
     """Full forward model: temperatures -> integrated fluxes.
 
     ``axis_name``: spectral mesh axis when running inside shard_map (the
-    model arrays then hold this chip's wavelength shard)."""
+    model arrays then hold this device's wavelength shard)."""
     if flux_state is None:
         flux_state = init_flux_state(phys, T_lay.dtype)
     T_int = interp_ops.interface_temperatures(T_lay)

@@ -6,7 +6,7 @@ datasets ``kpoints``/``opacities``, ``weighted Rayleigh cross-sections``,
 ``interface wavelengths``, ``wavelength width of bins``, ``temperatures``,
 ``pressures``.  The flat ``kpoints`` layout is ``[T, P, lambda, y]``
 row-major (kernels.cu:563-567); we reshape into a dense 4-D array
-immediately -- the TPU data model keeps it dense.
+immediately -- the device data model keeps it dense.
 
 The synthetic generator provides physically-plausible tables for testing and
 benchmarking in environments without the Zenodo input data (this framework's

@@ -106,7 +106,7 @@ _CL_FLAGS: Tuple[Tuple[str, str, type], ...] = (
 
 def read_param_file_and_command_line(argv=None) -> KtableParams:
     """param file (if any) + CL overrides (param.py:46-199)."""
-    ap = argparse.ArgumentParser(prog="helios-tpu-ktable")
+    ap = argparse.ArgumentParser(prog="python -m helios_tpu.ktable")
     ap.add_argument("-parameter_file", required=False, default=None)
     ap.add_argument("-wavelength_grid", required=False, default=None,
                     help='"resolution lower upper" in micron')

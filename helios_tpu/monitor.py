@@ -4,13 +4,12 @@ realtime plotting, structured metrics, profiler traces.
 The reference's observability is print-based (converged-layer counts
 computation.py:934-935, wall time per 100 iterations :902-905) plus a
 live matplotlib panel every ``n_plot`` iterations
-(realtime_plotting.py:37-151).  On TPU the RCE loop is one device-side
+(realtime_plotting.py:37-151).  Here the RCE loop is one device-side
 `lax.while_loop`, so observation happens at chunk boundaries: the loop
 runs ``chunk_iters`` device-resident iterations per host sync (the same
 ``state0`` continuation mechanism the checkpointer uses), then each
 registered callback sees the current state.  A chunk costs one extra
-host sync -- with chunk_iters=100 that is <1% overhead at the measured
-~1.5 ms/iteration.
+host sync, once per ``chunk_iters`` iterations.
 
 Built-in callbacks:
   - ProgressPrinter: reference-style progress lines
@@ -218,7 +217,7 @@ class MetricsWriter:
 
 class PlotCallback:
     """Realtime TP/flux panel per chunk (realtime_plotting.py cadence is
-    per-n_plot-iterations; on TPU the natural cadence is per chunk)."""
+    per-n_plot-iterations; here the natural cadence is per chunk)."""
 
     def __init__(self, phys: Phys, interactive: bool = True,
                  save_dir: Optional[str] = None):
@@ -257,7 +256,7 @@ class DebugChecker:
     The reference's debug mode printf-warns from inside the CUDA kernels
     on negative spectral fluxes (kernels.cu:1456-1459) and relies on the
     user watching stdout; inside a jitted while_loop there is no such
-    hook, so the TPU analogue checks the loop state at every chunk
+    hook, so this analogue checks the loop state at every chunk
     boundary: finiteness assertions on temperatures and fluxes (raising
     FloatingPointError like jax.config.debug_nans would) and
     negative-flux counters printed as warnings.

@@ -1,10 +1,10 @@
 """Direct stellar beam attenuation.
 
-TPU-native redesign of fdir_iso / fdir_noniso (source/kernels.cu:1265-1362):
+Redesign of fdir_iso / fdir_noniso (source/kernels.cu:1265-1362):
 the reference runs an O(nlayer) sequential loop per interface (O(n^2) work
 per spectral point, one CUDA thread each).  Here the same attenuation sums
 are expressed as a single [ninterface, nlayer] x [nlayer, B*Y] matrix
-contraction -- an MXU-shaped op -- using log-space accumulation:
+contraction -- a matrix product -- using log-space accumulation:
 
   F_dir[i] = -dir_beam * mu* * I_dir * exp( sum_{j>=i} dtau[j] / mu(i,j) )
 
@@ -18,9 +18,13 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 
 from helios_tpu import constants as pc
+
+# full-precision products in fp32 too (no TF32 on the GPU)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _mu_star_matrix(z_lay, mu_star, R_planet, geom_zenith_corr: int,
@@ -66,7 +70,7 @@ def fdir_iso(planckband_lay, delta_tau_tot, z_lay, *,
 
     # exponent[i, b, y] = sum_j W[i,j] * dtau[j,b,y]
     expo = jnp.einsum("il,lby->iby", W, delta_tau_tot,
-                      preferred_element_type=dtype)
+                      preferred_element_type=dtype, precision=_HIGHEST)
     F0 = -dir_beam * mu_star * I_dir                           # [B]
     return F0[None, :, None] * jnp.exp(expo)
 
@@ -99,7 +103,8 @@ def fdir_noniso(planckband_lay, delta_tau_up, delta_tau_low, z_lay, *,
 
     dtau_full = delta_tau_up + delta_tau_low
     expo_full = jnp.einsum("il,lby->iby", W_full, dtau_full,
-                           preferred_element_type=dtype)
+                           preferred_element_type=dtype,
+                           precision=_HIGHEST)
     F0 = -dir_beam * mu_star * I_dir
     F_dir = F0[None, :, None] * jnp.exp(expo_full)
 
@@ -109,7 +114,8 @@ def fdir_noniso(planckband_lay, delta_tau_up, delta_tau_low, z_lay, *,
     W_above = jnp.where(mask_gt, 1.0 / mu_c, 0.0)
     mu_diag = jnp.diagonal(mu_c)                               # mu(i, i), [L]
     expo_c = (jnp.einsum("il,lby->iby", W_above, dtau_full,
-                         preferred_element_type=dtype)
+                         preferred_element_type=dtype,
+                         precision=_HIGHEST)
               + delta_tau_up / mu_diag[:, None, None])
     Fc_dir = F0[None, :, None] * jnp.exp(expo_c)
     return F_dir, Fc_dir

@@ -1,9 +1,9 @@
 """Spectral integration and post-processing reductions.
 
-TPU-native replacements for the reference's atomicAdd-based reductions
+Vectorized replacements for the reference's atomicAdd-based reductions
 (integrate_flux_double, kernels.cu:2428-2513) and the post-processing
-kernels (:2888-3139): plain weighted contractions that XLA maps onto the
-VPU/MXU, deterministic by construction (fixed reduction order -- important
+kernels (:2888-3139): plain weighted contractions that XLA compiles to
+fixed reductions, deterministic by construction (fixed reduction order -- important
 for the 1e-8 equilibrium criterion under sharding, SURVEY.md section 7.2).
 """
 
@@ -11,10 +11,14 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from helios_tpu import constants as pc
 from helios_tpu.planck import dB_dT
+
+# full-precision products in fp32 too (no TF32 on the GPU)
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def gauss_band(f_wg, gauss_weight):
@@ -22,7 +26,8 @@ def gauss_band(f_wg, gauss_weight):
 
     f_wg: [..., B, Y]; returns [..., B].  (kernels.cu:2474-2476)
     """
-    return 0.5 * jnp.einsum("...by,y->...b", f_wg, gauss_weight)
+    return 0.5 * jnp.einsum("...by,y->...b", f_wg, gauss_weight,
+                            precision=_HIGHEST)
 
 
 class FluxTotals(NamedTuple):
@@ -40,8 +45,10 @@ def integrate_flux(F_down_wg, F_up_wg, F_dir_wg, gauss_weight,
     F_down_band = gauss_band(F_down_wg, gauss_weight)
     F_up_band = gauss_band(F_up_wg, gauss_weight)
     F_dir_band = gauss_band(F_dir_wg, gauss_weight)
-    F_up_tot = jnp.einsum("ib,b->i", F_up_band, delta_lambda)
-    F_down_tot = jnp.einsum("ib,b->i", F_dir_band + F_down_band, delta_lambda)
+    F_up_tot = jnp.einsum("ib,b->i", F_up_band, delta_lambda,
+                          precision=_HIGHEST)
+    F_down_tot = jnp.einsum("ib,b->i", F_dir_band + F_down_band,
+                            delta_lambda, precision=_HIGHEST)
     return FluxTotals(F_down_band=F_down_band, F_up_band=F_up_band,
                       F_dir_band=F_dir_band, F_down_tot=F_down_tot,
                       F_up_tot=F_up_tot, F_net=F_up_tot - F_down_tot)
@@ -49,7 +56,8 @@ def integrate_flux(F_down_wg, F_up_wg, F_dir_wg, gauss_weight,
 
 def integrate_beamflux(F_dir_band, delta_lambda):
     """Total direct beam flux per interface (kernels.cu:3119-3139)."""
-    return jnp.einsum("ib,b->i", F_dir_band, delta_lambda)
+    return jnp.einsum("ib,b->i", F_dir_band, delta_lambda,
+                      precision=_HIGHEST)
 
 
 def integrate_optdepth_transmission_iso(delta_tau_wg, trans_wg, gauss_weight):
@@ -122,11 +130,13 @@ def mean_opacities(opac_wg_lay, cloud_abs_cross_lay, meanmolmass_lay,
         Tb = jnp.asarray(T)
         if Tb.ndim == 0:
             dB = dB_dT(arg, Tb)                                 # [B, Y]
-            idB = half * jnp.einsum("by,y->b", dB, gauss_weight)
+            idB = half * jnp.einsum("by,y->b", dB, gauss_weight,
+                                    precision=_HIGHEST)
             idB = idB[None, :]                                  # [1, B]
         else:
             dB = dB_dT(arg[None], Tb[:, None, None])            # [L, B, Y]
-            idB = half[None] * jnp.einsum("lby,y->lb", dB, gauss_weight)
+            idB = half[None] * jnp.einsum("lby,y->lb", dB, gauss_weight,
+                                          precision=_HIGHEST)
         num = jnp.sum(idB, axis=-1)
         denom = jnp.sum(jnp.where(kappa_tot > 0, idB / kappa_tot, 0.0),
                         axis=-1)

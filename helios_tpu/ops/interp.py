@@ -1,6 +1,6 @@
 """Vectorized table interpolation ops.
 
-TPU-native replacements for the reference's per-thread bilinear interpolation
+Vectorized replacements for the reference's per-thread bilinear interpolation
 kernels (source/kernels.cu:496-919, :3209-3259): one gather + weighted-sum
 expression over the whole layer column instead of a CUDA thread per cell.
 The clamped index math matches the reference exactly so parity tests agree
@@ -84,7 +84,7 @@ def bilinear_tp(table, temps, press, T, p, *,
 def interpolate_opacity(ktable, scat_cross_table, temps, press, T, p):
     """Premixed opacity + Rayleigh cross-section interpolation.
 
-    TPU equivalent of opac_interpol (kernels.cu:524-609).
+    Vectorized equivalent of opac_interpol (kernels.cu:524-609).
 
     Args:
       ktable: [ntemp, npress, nbin, ny] opacities [cm^2/g].

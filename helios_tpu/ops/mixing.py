@@ -1,19 +1,18 @@
 """On-the-fly opacity mixing: correlated-k addition and Random Overlap.
 
-TPU-native redesign of add_to_mixed_opac (source/kernels.cu:3263-3399),
+Redesign of add_to_mixed_opac (source/kernels.cu:3263-3399),
 calc_h2o_scat (:3404-3440) and add_to_mixed_scat (:3444-3459).
 
 The reference's Random Overlap runs, per (bin, layer) CUDA thread, an
 insertion sort of the 400 pairwise opacity sums (with a fill-order trick to
 pre-sort; the value multiset is identical).  Here the whole grid is mixed
-at once, in TPU-shaped vector ops end to end: one batched `lax.sort` over
-a [layer, bin, ny*ny] tensor, a log-shift cumsum (`_cumsum_lanes` -- the
-native cumsum lowers to O(n) passes on the TPU lane axis), a closed-form
-rebin-index recurrence (`_rebin_indices`, preserving the reference quirk
-that the interval index advances at least one step per output point), and
-gather-free exact interval selection (`_select_at`).  On TPU the
-production path instead runs the fully fused in-VMEM kernel
-(kernels/ro_pallas.py); this module stays the exact oracle and CPU path.
+at once, in vector ops end to end: one batched `lax.sort` over a
+[layer, bin, ny*ny] tensor, a log-shift cumsum (`_cumsum_lanes`), a
+closed-form rebin-index recurrence (`_rebin_indices`, preserving the
+reference quirk that the interval index advances at least one step per
+output point), and gather-free exact interval selection (`_select_at`).
+The shapes of `_cumsum_lanes` and `_select_at` were chosen for an earlier
+vector machine; whether they still pay on the GPU is not measured yet.
 """
 
 from __future__ import annotations
@@ -59,9 +58,7 @@ def _rebin_indices(yg, gauss_y):
 
 def _cumsum_lanes(x):
     """Inclusive cumsum along the last axis via log2(n) shifted adds
-    (Hillis-Steele).  XLA's native cumsum lowers to an O(n)-pass
-    sequential reduce on the TPU lane axis -- 65 ms on the production RO
-    shape [105*385, 400] fp64 -- while this form is ~9 vector passes."""
+    (Hillis-Steele): ~9 vector passes for n = 400."""
     n = x.shape[-1]
     pad = [(0, 0)] * (x.ndim - 1)
     s = 1
@@ -72,27 +69,31 @@ def _cumsum_lanes(x):
 
 
 def _split_f32(x):
-    """Two-float32 split, x ~= hi + lo to ~2^-49 relative (hi carries 24
-    bits, lo the next ~24 of fp64's 53; same df64 precision as the rest
-    of the TPU compute path).  Identity (x, 0) for single precision."""
+    """Two-float32 split, x ~= hi + lo to ~2^-47 relative (hi carries 24
+    bits, lo the next ~24 of fp64's 53).  Identity (x, 0) for single
+    precision.
+
+    hi is x with its low 29 mantissa bits cleared, so it converts to
+    float32 exactly: a float64 -> float32 -> float64 round trip, the
+    obvious way to get hi, is one that XLA may fold away when it allows
+    excess precision (the GPU default), which would leave lo = 0."""
     if x.dtype != jnp.float64:
         return x.astype(jnp.float32), jnp.zeros_like(x, jnp.float32)
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
-    return hi, lo
+    bits = jax.lax.bitcast_convert_type(x, jnp.uint64)
+    hi = jax.lax.bitcast_convert_type(
+        bits & jnp.uint64(~((1 << 29) - 1) & (2 ** 64 - 1)), x.dtype)
+    return hi.astype(jnp.float32), (x - hi).astype(jnp.float32)
 
 
 def _select_at(w, arrays):
     """Gather-free selection: for each array a, return (a[w-1], a[w])
     along the last axis, batched over leading dims.
 
-    take_along_axis along the TPU lane axis lowers to per-element
-    dynamic slices (71 ms on the production RO shape); instead build ONE
-    f32 one-hot of w and contract on the MXU.  The CONTRACTION is exact
-    (every one-hot row has a single 1.0, so each product and sum is a
-    plain copy); the selected values carry the two-float32 split's ~49
-    significand bits (see _split_f32) -- df64 precision, same as the
-    fused kernels.
+    Instead of take_along_axis, build ONE f32 one-hot of w and contract
+    it as a matrix product.  The CONTRACTION is exact (every one-hot row
+    has a single 1.0, so each product and sum is a plain copy); the
+    selected values carry the two-float32 split's ~49 significand bits
+    (see _split_f32).
     """
     n2 = arrays[0].shape[-1]
     dtype = arrays[0].dtype
@@ -107,11 +108,13 @@ def _select_at(w, arrays):
         sh_lo = jnp.concatenate([lo[..., :1], lo[..., :-1]], axis=-1)
         cols += [hi, lo, sh_hi, sh_lo]
     stacked = jnp.stack(cols, axis=-1)                    # [..., n2, 4A]
-    # HIGHEST precision is load-bearing: the TPU default contracts f32
-    # matmuls through bfloat16 passes, which would round the "exactly
-    # selected" values at ~1e-3 relative
+    # the plain fp32 algorithm is load-bearing: a default-precision f32
+    # matmul may run in TF32 (~1e-3 relative), and even HIGHEST may be
+    # emulated from narrower products on the GPU (~1e-7), either of which
+    # would round the "exactly selected" values
     sel = jnp.einsum("...yp,...pk->...yk", onehot, stacked,
-                     precision=jax.lax.Precision.HIGHEST)
+                     precision=jax.lax.DotAlgorithmPreset.F32_F32_F32,
+                     preferred_element_type=jnp.float32)
     out = []
     for i in range(len(arrays)):
         at_w = sel[..., 4 * i].astype(dtype) + sel[..., 4 * i + 1]
@@ -129,11 +132,10 @@ def random_overlap_mix(mixed_opac, new_opac, gauss_weight, gauss_y):
 
     Returns the re-binned mixed k-coefficients [..., ny].
 
-    TPU hot-path design (vs the reference's per-thread insertion sort of
-    400 pairwise sums): one batched variadic `lax.sort` (the sort itself
-    is cheap on TPU -- the naive formulation's cost was the O(n)-pass
-    cumsum and the lane gathers, both replaced by exact vector forms
-    here: `_cumsum_lanes`, `_rebin_indices`, `_select_at`).
+    Instead of the reference's per-thread insertion sort of 400 pairwise
+    sums: one batched variadic `lax.sort`, then exact vector forms of the
+    cumsum, the rebin index and the interval lookup (`_cumsum_lanes`,
+    `_rebin_indices`, `_select_at`).
     """
     ny = gauss_y.shape[0]
     sums = mixed_opac[..., :, None] + new_opac[..., None, :]
@@ -156,8 +158,7 @@ def random_overlap_mix(mixed_opac, new_opac, gauss_weight, gauss_y):
 
 def add_species_opacity(mixed_opac, opac_spec, vmr, mass_spec,
                         meanmolmass, gauss_weight, gauss_y, *,
-                        species_index: int, ro_method: int,
-                        use_pallas: bool = False):
+                        species_index: int, ro_method: int):
     """Mix one species into the running opacity (add_to_mixed_opac,
     kernels.cu:3263-3399).
 
@@ -182,13 +183,7 @@ def add_species_opacity(mixed_opac, opac_spec, vmr, mass_spec,
     negligible = ((0.01 * mixed_opac[..., 0] > new_opac[..., ny - 1])
                   | (0.01 * new_opac[..., 0] > mixed_opac[..., ny - 1]))
     ck = correlated_k_add(mixed_opac, new_opac)
-    if use_pallas:
-        from helios_tpu.kernels.ro_pallas import random_overlap_mix_pallas
-        ro = random_overlap_mix_pallas(mixed_opac, new_opac,
-                                       gauss_weight, gauss_y)
-    else:
-        ro = random_overlap_mix(mixed_opac, new_opac, gauss_weight,
-                                gauss_y)
+    ro = random_overlap_mix(mixed_opac, new_opac, gauss_weight, gauss_y)
     return jnp.where(negligible[..., None], ck, ro)
 
 

@@ -1,6 +1,6 @@
 """Iterative spectral flux sweeps (the two-stream down/up recurrences).
 
-TPU-native formulation of fband_iso / fband_noniso
+Vectorized formulation of fband_iso / fband_noniso
 (source/kernels.cu:1366-1799).  The reference runs, per (bin, Gauss-point)
 CUDA thread, a sequential recurrence down over interfaces then up.  Here all
 layer-local coefficients (Planck source terms, direct-beam terms, M/N/P

@@ -1,6 +1,6 @@
 """Exact coupled flux solve via tridiagonal (Thomas) elimination.
 
-TPU-native formulation of fband_matrix_iso / fband_matrix_noniso
+Vectorized formulation of fband_matrix_iso / fband_matrix_noniso
 (source/kernels.cu:1803-2424).  The interleaved up/down flux system along
 each spectral column is a tridiagonal system of size 2*ninterface (iso) or
 4*ninterface - 2 (non-iso); we build the diagonals as dense
@@ -31,25 +31,14 @@ from helios_tpu.ops.twostream import CellQuantities, E_maybe
 from helios_tpu.ops import sweep as sweep_ops
 
 
-def thomas_solve(b, c, d, use_pallas: bool = False):
+def thomas_solve(b, c, d):
     """Solve the tridiagonal system with sub-diagonal a_i = c_{i-1}.
 
     b, c, d: [n, ...]; returns x: [n, ...].
     Forward: c'_i = c_i/(b_i - c_{i-1} c'_{i-1}),
              d'_i = (d_i - c_{i-1} d'_{i-1})/(b_i - c_{i-1} c'_{i-1});
     backward: x_i = d'_i - c'_i x_{i+1}.
-
-    ``use_pallas``: run the df64 in-VMEM kernel on the lane-flattened
-    spectral axis (TPU fp64 path; kernels/thomas_pallas.py) instead of
-    the emulated-fp64 lax.scan pair.
     """
-    if use_pallas and b.dtype == jnp.float64:
-        from helios_tpu.kernels.thomas_pallas import thomas_solve_pallas
-        n = b.shape[0]
-        lead = b.shape[1:]
-        flat = lambda x: x.reshape(n, -1)
-        x = thomas_solve_pallas(flat(b), flat(c), flat(d))
-        return x.reshape((n,) + lead)
     c_prev = jnp.concatenate([jnp.zeros_like(c[:1]), c[:-1]], axis=0)
 
     def fwd(carry, xs):
@@ -84,8 +73,7 @@ def fband_matrix_iso(cells: CellQuantities, planckband_lay, F_dir,
                      surf_albedo, scat_trigger, *, scat_corr: int,
                      i2s_transition: float, epsi: float, mu_star: float,
                      dir_beam: int, f_factor: float, R_star: float,
-                     a: float, use_pallas: bool = False
-                     ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+                     a: float) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Isothermal Thomas-method flux solve (kernels.cu:1803-2024).
 
     Returns (F_down, F_up): [L+1, B, Y].
@@ -142,7 +130,7 @@ def fband_matrix_iso(cells: CellQuantities, planckband_lay, F_dir,
     toa_row = jnp.broadcast_to(toa[None, :, None], (1, B, Y)).astype(dtype)
     d = jnp.concatenate([src_boa[None], d_rows, toa_row], axis=0)
 
-    x = thomas_solve(b, c, d, use_pallas)        # [2*nint, B, Y]
+    x = thomas_solve(b, c, d)        # [2*nint, B, Y]
 
     F_down_mat = x[0::2]                         # [nint, B, Y]
     F_up_mat = x[1::2]
@@ -192,8 +180,7 @@ def fband_matrix_noniso(upper: CellQuantities, lower: CellQuantities,
                         surf_albedo, scat_trigger, *, scat_corr: int,
                         i2s_transition: float, epsi: float, mu_star: float,
                         dir_beam: int, f_factor: float, R_star: float,
-                        a: float, delta_tau_limit: float,
-                        use_pallas: bool = False):
+                        a: float, delta_tau_limit: float):
     """Non-isothermal Thomas-method flux solve (kernels.cu:2028-2424).
 
     Returns (F_down, F_up, Fc_down, Fc_up).
@@ -283,7 +270,7 @@ def fband_matrix_noniso(upper: CellQuantities, lower: CellQuantities,
                          jnp.zeros((1, B, Y), dtype)], axis=0)
     d = jnp.concatenate([src_boa[None], d_rows, toa_row], axis=0)
 
-    x = thomas_solve(b, c, d, use_pallas)        # [4*nint-2, B, Y]
+    x = thomas_solve(b, c, d)        # [4*nint-2, B, Y]
 
     # translate (kernels.cu:2272-2283): i%4==0 -> F_down[i/4],
     # 1 -> F_up, 2 -> Fc_down, 3 -> Fc_up; the final row n-1 = 4*nint-3 is

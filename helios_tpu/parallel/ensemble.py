@@ -1,10 +1,10 @@
 """Planet-ensemble data parallelism: one command, N atmospheres.
 
 The reference is strictly single-GPU/single-planet -- multi-planet studies
-run as N separate processes (SURVEY.md section 2.4).  On TPU the planet
-ensemble is the natural DCN-friendly data-parallel axis: N independent
-columns share one compiled RCE program, batched with `vmap` and sharded
-over the mesh's "planet" axis with zero cross-planet communication.
+run as N separate processes (SURVEY.md section 2.4).  Here N independent
+columns share one compiled RCE program, batched with `vmap` and, with
+``n_planet_batch`` > 1, sharded over the mesh's "planet" axis with zero
+cross-planet communication.
 
 Ensemble members must share the compile-time physics (`Phys`): same grid
 shapes and scalar parameters.  Everything that lives in `ModelArrays` may
@@ -335,9 +335,12 @@ def run_ensemble(cfgs: Sequence, tables: Optional[Sequence] = None,
         n_spec = max(int(cfg0.n_spectral_shards), 1)
         need = n_pl * n_spec
         devs = jax.devices()
-        if len(devs) >= need:
-            mesh = shd.make_mesh(n_planet=n_pl, n_spectral=n_spec,
-                                 devices=devs[:need])
+        if len(devs) < need:
+            raise RuntimeError(
+                f"n_planet_batch={n_pl} x n_spectral_shards={n_spec} needs "
+                f"{need} devices but only {len(devs)} are visible")
+        mesh = shd.make_mesh(n_planet=n_pl, n_spectral=n_spec,
+                             devices=devs[:need])
 
     want_conv = (phys.convection and not phys.singlewalk and not phys.iso)
     progress = bool(cfg0.progress)

@@ -1,26 +1,25 @@
-"""Multi-chip sharding: planet-ensemble data parallelism x spectral sharding.
+"""Multi-device sharding: planet-ensemble data parallelism x spectral sharding.
 
-The reference is strictly single-GPU (SURVEY.md section 2.4); this module is
-the from-scratch TPU scaling design:
+The reference is strictly single-GPU (SURVEY.md section 2.4); this module
+spreads one run, or a batch of runs, over several cards of a host:
 
-* **spectral axis (ICI)**: the wavelength-bin axis of every [.., bin, y]
-  array is sharded across chips.  All per-cell physics (opacity interp,
+* **spectral axis**: the wavelength-bin axis of every [.., bin, y] array is
+  sharded across devices.  All per-cell physics (opacity interp,
   transmission, the layer-sequential sweeps) is embarrassingly parallel
   across bins, so the only communication is the band->total flux reduction
-  in `integrate_flux` (a `psum` XLA inserts from the sharding annotations)
-  and the scalar convergence predicates.
-* **planet axis (DCN-friendly)**: independent atmospheres batched with
-  `vmap`; no communication at all.
+  in `integrate_flux` (a `psum`) and the scalar convergence predicates.
+* **planet axis**: independent atmospheres batched with `vmap`; no
+  communication at all.
 
 Two mechanisms:
 * `sharded_forward` uses `NamedSharding` + `jit` (GSPMD auto
   partitioning) -- fine for the pure-XLA scan path.
 * The RCE loop entry points (`sharded_radiation_loop`,
-  `batched_rce_step`) use **shard_map**: the fused Pallas sweep kernels
-  are custom calls GSPMD cannot partition, so each chip explicitly runs
+  `batched_rce_step`) use **shard_map**: the fused sweep kernels are
+  custom calls GSPMD cannot partition, so each device explicitly runs
   the loop on its local wavelength shard.  The band->total `psum` inside
   `integrate_flux_flat` is the single per-iteration collective and makes
-  all convergence predicates replica-identical, so chips iterate in
+  all convergence predicates replica-identical, so devices iterate in
   lockstep.  The layer recursion needs no communication at all (bins are
   independent).
 """
@@ -33,7 +32,6 @@ from typing import Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from helios_tpu.forward import (FluxState, ModelArrays, Phys, forward_fluxes,
@@ -45,17 +43,15 @@ def make_mesh(n_planet: int = 1, n_spectral: Optional[int] = None,
               devices=None) -> Mesh:
     """Device mesh with ("planet", "spectral") axes.
 
-    The spectral axis should map to ICI neighbors (inner axis), the planet
-    axis across hosts/DCN (outer axis) -- `create_device_mesh` orders them
-    that way.
+    The cards of a host are joined all to all, so the mesh is a plain
+    reshape of the device list: the layout follows the algorithm alone.
     """
     devices = devices if devices is not None else jax.devices()
     if n_spectral is None:
         n_spectral = len(devices) // n_planet
     assert n_planet * n_spectral == len(devices), (
         f"{n_planet} x {n_spectral} != {len(devices)} devices")
-    dev_array = mesh_utils.create_device_mesh((n_planet, n_spectral),
-                                              devices=devices)
+    dev_array = np.asarray(devices).reshape(n_planet, n_spectral)
     return Mesh(dev_array, ("planet", "spectral"))
 
 
@@ -73,7 +69,6 @@ _MODEL_SPECS = dict(
     delta_lambda=P("spectral"),
     gauss_y=P(), gauss_weight=P(),
     planck_grid=P(None, "spectral"),
-    planck_grid_pairs=P(None, None, "spectral"),
     starflux=P("spectral"), surf_albedo=P("spectral"),
     cloud_abs_cross_lay=P(None, "spectral"),
     cloud_scat_cross_lay=P(None, "spectral"),
@@ -154,7 +149,6 @@ def pad_spectral(phys: Phys, m: ModelArrays,
         lambda_edges=_edge_pad(m.lambda_edges, 0, nb),
         delta_lambda=jnp.concatenate([m.delta_lambda, zeros_dl]),
         planck_grid=_edge_pad(m.planck_grid, 1, nb),
-        planck_grid_pairs=_edge_pad(m.planck_grid_pairs, 2, nb),
         starflux=_edge_pad(m.starflux, 0, nb),
         surf_albedo=_edge_pad(m.surf_albedo, 0, nb),
         cloud_abs_cross_lay=_edge_pad(m.cloud_abs_cross_lay, 1, nb),
@@ -221,16 +215,11 @@ def _spec(*dims, planet: bool = False):
 
 def _coeff_specs(phys: Phys, planet: bool = False):
     """PartitionSpec pytree for CellCache.coeff (Iso/NonIsoCoeffCache):
-    [L, S] members shard the spectral axis, [S] boundary rows too.
-
-    In pairs mode (fastpath.pairs_coeff_active) every leaf carries a
-    leading stacked (hi, lo) axis of 2."""
+    [L, S] members shard the spectral axis, [S] boundary rows too."""
     from helios_tpu import fastpath as fpath
 
-    pairs = fpath.pairs_coeff_active(phys)
-    lead = (None,) if pairs else ()
-    sp = _spec(*lead, None, AXIS, planet=planet)
-    row = _spec(*lead, AXIS, planet=planet)
+    sp = _spec(None, AXIS, planet=planet)
+    row = _spec(AXIS, planet=planet)
     if phys.iso:
         return fpath.IsoCoeffCache(
             a=sp, b_nm=sp, planck_coeff=sp, dir_down=sp, dir_up=sp,
@@ -291,7 +280,7 @@ def sharded_radiation_loop(phys: Phys, mesh: Mesh,
     """The full RCE radiation loop under shard_map: each chip runs the
     while_loop on its wavelength shard; the band->total psum keeps every
     convergence predicate replica-identical, so all chips iterate in
-    lockstep with ONE collective per iteration riding ICI.
+    lockstep with ONE collective per iteration over the spectral axis.
 
     shard_map (not GSPMD auto-sharding) is required here: the fused
     Pallas sweep kernels are custom calls the partitioner cannot split,
@@ -433,7 +422,7 @@ def production_runners(phys: Phys, mesh: Mesh,
 
     Each chip runs the while_loop on its wavelength shard; the
     band->total psum inside integrate_flux_flat is the single
-    per-iteration ICI collective and keeps every convergence predicate
+    per-iteration collective and keeps every convergence predicate
     (and the convective adjustment, which consumes the psummed totals)
     replica-identical, so chips iterate in lockstep.
 

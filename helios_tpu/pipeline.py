@@ -125,8 +125,7 @@ def post_process(phys: Phys, m: ModelArrays, T_lay, flux_state,
 
     planckband_lay = planck_mod.planckband_layers(
         m.planck_grid, T_lay, m.starflux, real_star=phys.real_star,
-        dim=phys.plancktable_dim, step=phys.plancktable_step,
-        pairs=m.planck_grid_pairs)
+        dim=phys.plancktable_dim, step=phys.plancktable_step)
     trans_weight_band, contr_band = int_ops.contribution_function(
         trans_full, planckband_lay, m.gauss_weight, phys.epsi)
 
@@ -382,6 +381,20 @@ def prepare_model(cfg: HeliosConfig, table: OpacityTable):
     return phys, arrays, cloud_result
 
 
+def radiation_program(phys: Phys, thermo, sset=None):
+    """The radiative loop `run` executes on one device, jitted:
+    (arrays, T0) -> RadLoopState."""
+    return jax.jit(lambda m, T0: radiation_loop(phys, m, thermo, T0,
+                                                sset=sset))
+
+
+def convection_program(phys: Phys, thermo, sset=None):
+    """The convective loop `run` executes on one device, jitted:
+    (arrays, RadLoopState) -> ConvLoopState."""
+    return jax.jit(lambda m, rad: convection_loop(phys, m, thermo, rad,
+                                                  sset=sset))
+
+
 def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None,
         write_output: bool = True, sset=None) -> RunOutput:
     """Full pipeline run (the run_helios equivalent, helios.py:35-137)."""
@@ -402,8 +415,8 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None,
 
     T0 = jnp.asarray(initial_temperatures(cfg, phys, arrays))
 
-    # multi-chip: shard the lambda x y grid over `n_spectral_shards`
-    # devices (ICI); the RCE loops then run under shard_map with one
+    # multi-device: shard the lambda x y grid over `n_spectral_shards`
+    # devices; the RCE loops then run under shard_map with one
     # band->total psum per iteration (parallel/sharding.py).  The
     # reference has no distributed mode at all (SURVEY.md section 2.4).
     mesh = None
@@ -418,7 +431,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None,
                 "devices are visible")
         # any bin count runs on any shard count: pad the spectral axis
         # up to a shard multiple with zero delta_lambda (the reference
-        # grid is 385 = 5*7*11 bins, indivisible by 2/4/8 chips)
+        # grid is 385 = 5*7*11 bins, indivisible by 2/4/8 devices)
         if phys.nbin % n_spec != 0:
             phys_run, arrays_run = shd.pad_spectral(phys, arrays, n_spec)
             if sset is not None:
@@ -499,9 +512,7 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None,
             phys_run, arrays_run, thermo, T0, chunk_iters=None,
             sset=sset_run, mesh=mesh)
     else:
-        rad = jax.jit(
-            lambda t: radiation_loop(phys_run, arrays_run, thermo, t,
-                                     sset=sset_run))(T0)
+        rad = radiation_program(phys_run, thermo, sset_run)(arrays_run, T0)
 
     conv = None
     if phys.convection and not phys.singlewalk and not phys.iso:
@@ -529,9 +540,8 @@ def run(cfg: HeliosConfig, table: Optional[OpacityTable] = None,
                 phys_run, arrays_run, thermo, rad, chunk_iters=None,
                 sset=sset_run, mesh=mesh)
         else:
-            conv = jax.jit(
-                lambda r: convection_loop(phys_run, arrays_run, thermo, r,
-                                          sset=sset_run))(rad)
+            conv = convection_program(phys_run, thermo, sset_run)(
+                arrays_run, rad)
         final_T = conv.T_lay
         flux_state = conv.flux
         F_smooth_sum = conv.F_smooth_sum

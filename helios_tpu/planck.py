@@ -1,6 +1,6 @@
 """Planck function utilities: band-integrated Planck table and lookups.
 
-TPU-native redesign of the reference's Planck machinery
+Redesign of the reference's Planck machinery
 (source/kernels.cu:55-105 planck_func/analyt_planck, :362-416 plancktable,
 :923-1010 planck_interpol_layer/interface):
 
@@ -95,51 +95,24 @@ def build_planck_table(lambda_edge, delta_lambda, T_star,
     return integrated_planck_over_bins(lambda_edge, delta_lambda, T_all)
 
 
-def split_planck_grid(planck_grid):
-    """fp64 Planck grid -> stacked (hi, lo) float32 pairs [2, dim+1, B].
-
-    Stored once in ModelArrays so every lookup gathers float32 rows: on
-    TPU, XLA lowers an fp64 row gather to an emulated-fp64 one-hot
-    dot_general ~25x slower than fp32 -- at 0.33 ms per lookup it was the
-    single largest per-iteration cost of the RCE loop.  The pair gather +
-    df64 interpolation reproduces the fp64 lookup to ~1e-14.
-    """
-    hi = planck_grid.astype(jnp.float32)
-    lo = (planck_grid - hi.astype(planck_grid.dtype)).astype(jnp.float32)
-    return jnp.stack([hi, lo])
-
-
-def interpolate_planck(planck_grid, T, dim: int, step: int, pairs=None):
-    """Linear lookup of band Planck values at temperatures T.
+def interpolate_planck(planck_grid, T, dim: int, step: int):
+    """Linear lookup of band Planck values at temperatures T: a row gather
+    and a blend in the grid's own precision.
 
     Index math follows reference kernels.cu:952-974: t = (T-1)/step clamped
     to [0.001, dim-1.001].  Returns [..., nbin].
-
-    ``pairs``: optional split_planck_grid output; the gather and the
-    linear interpolation then run in double-float32 (fast on TPU).
     """
     t = (T - 1.0) / step
     t = jnp.clip(t, 0.001, dim - 1.001)
     tdown = jnp.floor(t).astype(jnp.int32)
     w = (t - tdown)[..., None]
-
-    if pairs is not None and planck_grid.dtype == jnp.float64:
-        from helios_tpu.ops import df64
-        lo_rows = jnp.take(pairs, tdown, axis=1)       # [2, ..., B] f32
-        hi_rows = jnp.take(pairs, tdown + 1, axis=1)
-        wp = df64.split(w)
-        one_m = df64.sub(df64.const(1.0, wp.hi), wp)
-        val = df64.add(df64.mul(df64.DF(lo_rows[0], lo_rows[1]), one_m),
-                       df64.mul(df64.DF(hi_rows[0], hi_rows[1]), wp))
-        return df64.combine(val, planck_grid.dtype)
-
     lo = planck_grid[tdown]
     hi = planck_grid[tdown + 1]
     return lo * (1.0 - w) + hi * w
 
 
 def planckband_layers(planck_grid, T_lay, starflux, *, real_star: int,
-                      dim: int, step: int, pairs=None):
+                      dim: int, step: int):
     """Planck band values for layers + stellar row + surface row.
 
     Returns [nlayer+2, nbin]: rows 0..nlayer-1 from layer temperatures,
@@ -150,10 +123,8 @@ def planckband_layers(planck_grid, T_lay, starflux, *, real_star: int,
     T_lay: [nlayer+1] including surface ghost layer at index nlayer.
     """
     nlayer = T_lay.shape[0] - 1
-    lay_rows = interpolate_planck(planck_grid, T_lay[:nlayer], dim, step,
-                                  pairs)
-    surf_row = interpolate_planck(planck_grid, T_lay[nlayer], dim, step,
-                                  pairs)
+    lay_rows = interpolate_planck(planck_grid, T_lay[:nlayer], dim, step)
+    surf_row = interpolate_planck(planck_grid, T_lay[nlayer], dim, step)
     if real_star:
         star_row = starflux / jnp.pi
     else:
@@ -162,48 +133,9 @@ def planckband_layers(planck_grid, T_lay, starflux, *, real_star: int,
         [lay_rows, star_row[None, :], surf_row[None, :]], axis=0)
 
 
-def planckband_interfaces(planck_grid, T_int, *, dim: int, step: int,
-                          pairs=None):
+def planckband_interfaces(planck_grid, T_int, *, dim: int, step: int):
     """Planck band values at interface temperatures: [ninterface, nbin]."""
-    return interpolate_planck(planck_grid, T_int, dim, step, pairs)
-
-
-def _interpolate_planck_df(pairs, T, dim: int, step: int):
-    """df64-pairs Planck lookup: returns an ops.df64.DF [..., nbin]."""
-    from helios_tpu.ops import df64
-    t = (T - 1.0) / step
-    t = jnp.clip(t, 0.001, dim - 1.001)
-    tdown = jnp.floor(t).astype(jnp.int32)
-    w = (t - tdown)[..., None]
-    lo_rows = jnp.take(pairs, tdown, axis=1)
-    hi_rows = jnp.take(pairs, tdown + 1, axis=1)
-    wp = df64.split(w)
-    one_m = df64.sub(df64.const(1.0, wp.hi), wp)
-    return df64.add(df64.mul(df64.DF(lo_rows[0], lo_rows[1]), one_m),
-                    df64.mul(df64.DF(hi_rows[0], hi_rows[1]), wp))
-
-
-def planckband_layers_df(pairs, T_lay, starflux, *, real_star: int,
-                         dim: int, step: int):
-    """planckband_layers entirely in df64 pairs (the pairs-native
-    per-iteration path): returns an ops.df64.DF [nlayer+2, nbin]."""
-    from helios_tpu.ops import df64
-    nlayer = T_lay.shape[0] - 1
-    lay = _interpolate_planck_df(pairs, T_lay[:nlayer], dim, step)
-    surf = _interpolate_planck_df(pairs, T_lay[nlayer:nlayer + 1], dim,
-                                  step)
-    if real_star:
-        star = df64.split(starflux / jnp.pi)
-    else:
-        star = df64.DF(pairs[0, dim], pairs[1, dim])
-    return df64.DF(
-        jnp.concatenate([lay.hi, star.hi[None, :], surf.hi], axis=0),
-        jnp.concatenate([lay.lo, star.lo[None, :], surf.lo], axis=0))
-
-
-def planckband_interfaces_df(pairs, T_int, *, dim: int, step: int):
-    """planckband_interfaces in df64 pairs: DF [ninterface, nbin]."""
-    return _interpolate_planck_df(pairs, T_int, dim, step)
+    return interpolate_planck(planck_grid, T_int, dim, step)
 
 
 def correct_incident_energy(planck_grid, starflux, delta_lambda, *,

@@ -231,17 +231,22 @@ def conv_correct(T_lay, p_lay, p_int, kappa_lay, kappa_int, c_p_lay,
 
     # enthalpy weight c_p/mmm * delta_p, rescaled by AMU/p_int[0]: the
     # global scale cancels in mean_pot = num/denom, and the raw weight
-    # (~1e42 cgs) overflows the f32 exponent range of TPU-emulated fp64
+    # (~1e42 cgs) would overflow the fp32 exponent range in single
+    # precision
     w = (c_p_lay / (meanmolmass_lay / pc.AMU)
          * ((p_int[:L] - p_int[1:]) / p_int[0]))
     zl = zones.zone_of_layer
     in_zone = zl >= 0
     seg = jnp.where(in_zone, zl, L)   # dump radiative layers in slot L
 
-    num = jax.ops.segment_sum(jnp.where(in_zone, w * T_lay[:L], 0.0), seg,
-                              num_segments=L + 1)
-    denom = jax.ops.segment_sum(jnp.where(in_zone, w * factor, 0.0), seg,
-                                num_segments=L + 1)
+    # per-zone sums as reductions over a [zone, layer] mask, in a fixed
+    # order: segment_sum lowers to a scatter-add, whose atomic order on
+    # the GPU changes from run to run, and the RCE trajectory amplifies
+    # those last-bit differences
+    member = seg[None, :] == jnp.arange(L + 1)[:, None]       # [L+1, L]
+    zone_sum = lambda v: jnp.sum(jnp.where(member, v, 0.0), axis=1)
+    num = zone_sum(jnp.where(in_zone, w * T_lay[:L], 0.0))
+    denom = zone_sum(jnp.where(in_zone, w * factor, 0.0))
     mean_pot = jnp.where(denom != 0.0, num / jnp.where(denom == 0, 1.0, denom),
                          0.0)
     if fudge_per_zone is not None:

@@ -1,6 +1,6 @@
 """The radiative-convective interplay loop, fully on device.
 
-TPU-native redesign of convection_loop (source/computation.py:992-1174) and
+Redesign of convection_loop (source/computation.py:992-1174) and
 conv_temp_iter (source/kernels.cu:2768-2884).  The reference ping-pongs
 host<->device every iteration because convective adjustment is CPU code;
 here adjustment is the device-side segmented-scan implementation in

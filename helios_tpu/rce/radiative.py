@@ -1,6 +1,6 @@
 """Radiative temperature iteration: the RCE driver, fully on device.
 
-TPU-native redesign of the reference's rad_temp_iter kernel
+Redesign of the reference's rad_temp_iter kernel
 (source/kernels.cu:2606-2763) and radiation_loop driver
 (source/computation.py:827-990).  The reference round-trips the per-layer
 abort flags to the host every iteration and temperatures every 100th; here
@@ -163,8 +163,8 @@ def rad_temp_step(phys: Phys, m: ModelArrays, totals: int_ops.FluxTotals,
 
         # delta_T = c/(dp) * pref*p0/|c|^0.9 == pref*p0/dp * sign(c)*|c|^0.1
         # -- algebraically identical to kernels.cu:2695-2698 but without
-        # the |c|^-0.9 intermediate that overflows the f32 exponent range
-        # of TPU-emulated fp64 for tiny flux residuals
+        # the |c|^-0.9 intermediate that overflows the fp32 exponent
+        # range for tiny flux residuals in single precision
         absc = jnp.abs(combined)
         delta_T = (prefactor * m.p_lay[0] / (m.p_int[0] - m.p_int[1])
                    * jnp.sign(combined) * absc ** 0.1)

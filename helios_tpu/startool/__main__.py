@@ -31,7 +31,7 @@ _STAR_FLOAT_KEYS = ("temp", "log_g", "m", "w_conversion_factor",
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="helios-tpu-startool")
+    ap = argparse.ArgumentParser(prog="python -m helios_tpu.startool")
     ap.add_argument("-star_file", default=None,
                     help="JSON file with a star dict (or list of dicts)")
     for k in _STAR_KEYS:

@@ -1,9 +1,9 @@
 """Loop-based numpy oracle of the reference equations, used as the parity
-yardstick for the vectorized TPU ops.
+yardstick for the vectorized device ops.
 
 Each function re-expresses the corresponding reference kernel's math
 (citations per function) with explicit Python loops over small grids --
-slow, simple, and independent of the TPU-side formulation, so agreement is
+slow, simple, and independent of the vectorized formulation, so agreement is
 a meaningful test.  This is the "golden-value parity vs the reference
 equations on tiny grids" stratum of the test pyramid (SURVEY.md section 4b).
 """

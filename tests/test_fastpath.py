@@ -214,25 +214,3 @@ def test_flat_matrix_method_matches_legacy(iso):
     _, want, _ = forward_fluxes(phys_it, arrays, T)
     np.testing.assert_allclose(np.asarray(got.F_net),
                                np.asarray(want.F_net), rtol=5e-4)
-
-
-@pytest.mark.parametrize("iso", [1, 0])
-@pytest.mark.parametrize("dir_beam", [0, 1])
-def test_pairs_native_solve_matches_fp64(iso, dir_beam):
-    """The pairs-native production path (coefficient cache stored as df64
-    pairs, Planck lookup + source assembly + Pallas sweep all in
-    two-float32) matches the fp64 XLA path to df64 accuracy."""
-    phys, arrays = make_case(iso, clouds=1, dir_beam=dir_beam)
-    T = jnp.linspace(1500.0, 800.0, phys.nlayer + 1)
-
-    _, want, _ = forward_fluxes(phys, arrays, T)
-
-    phys_p = phys.__class__(**{**phys.__dict__, "use_pallas": "yes"})
-    assert fp.pairs_coeff_active(phys_p)
-    _, got, _ = forward_fluxes(phys_p, arrays, T)
-
-    for field in ("F_down_band", "F_up_band", "F_net"):
-        w = np.asarray(getattr(want, field))
-        np.testing.assert_allclose(
-            np.asarray(getattr(got, field)), w,
-            rtol=5e-11, atol=1e-12 * np.abs(w).max(), err_msg=field)

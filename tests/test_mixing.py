@@ -39,6 +39,51 @@ def test_random_overlap_matches_oracle(gauss, seed):
     np.testing.assert_allclose(got, want, rtol=1e-12)
 
 
+@pytest.mark.parametrize("ny", [4, 20])
+def test_random_overlap_grid_matches_oracle(rng, ny):
+    """The batched XLA Random Overlap over a [layer, bin] grid vs the
+    per-cell oracle of the reference kernel."""
+    y, w = gauss_legendre_ypoints(ny)
+    L, B = 3, 5
+    mixed = np.sort(np.exp(rng.normal(0, 4, (L, B, ny))), axis=-1)
+    new = np.sort(np.exp(rng.normal(0, 4, (L, B, ny))), axis=-1)
+    got = np.asarray(mix_ops.random_overlap_mix(
+        jnp.asarray(mixed), jnp.asarray(new), jnp.asarray(w),
+        jnp.asarray(y)))
+    want = np.array([[refm.add_to_mixed_opac_cell(
+        mixed[l, b], new[l, b], w, y, s=1, ro_method=1)
+        for b in range(B)] for l in range(L)])
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_split_f32_hi_is_exact_in_float32(rng):
+    """hi converts to float32 without rounding and hi + lo keeps ~47
+    bits, so no compiler folding of the conversions can change them."""
+    x = jnp.asarray(10.0 ** rng.uniform(-30, 30, 1000))
+    hi, lo = mix_ops._split_f32(x)
+    assert hi.dtype == lo.dtype == jnp.float32
+    np.testing.assert_array_equal(
+        np.asarray(hi, np.float64),
+        np.asarray(x) - np.asarray(x - hi.astype(jnp.float64)))
+    np.testing.assert_allclose(
+        np.asarray(hi, np.float64) + np.asarray(lo, np.float64),
+        np.asarray(x), rtol=2.0 ** -46)
+
+
+@pytest.mark.gpu
+def test_random_overlap_on_gpu_matches_oracle(rng, gauss):
+    """The compiled Random Overlap on the card vs the per-cell oracle."""
+    y, w = gauss
+    mixed = np.sort(np.exp(rng.normal(0, 4, (6, 40, 20))), axis=-1)
+    new = np.sort(np.exp(rng.normal(0, 4, (6, 40, 20))), axis=-1)
+    got = np.asarray(mix_ops.random_overlap_mix(
+        jnp.asarray(mixed), jnp.asarray(new), w, y))
+    want = np.array([[refm.add_to_mixed_opac_cell(
+        mixed[l, b], new[l, b], np.asarray(w), np.asarray(y), s=1,
+        ro_method=1) for b in range(40)] for l in range(6)])
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_add_species_negligible_and_batched(gauss, seed):
     """Batched add_species_opacity equals per-cell oracle, including the

@@ -94,6 +94,42 @@ def test_planck_table_lookup():
                                rtol=1e-10)
 
 
+def _planck_lookup_oracle(grid, T, dim, step):
+    """numpy linear lookup with the reference's clamped index math
+    (kernels.cu:952-974)."""
+    t = np.clip((np.asarray(T) - 1.0) / step, 0.001, dim - 1.001)
+    lo = np.floor(t).astype(int)
+    w = (t - lo)[..., None]
+    return grid[lo] * (1.0 - w) + grid[lo + 1] * w
+
+
+@pytest.mark.parametrize("where", ["layers", "interfaces"])
+def test_planck_lookup_matches_numpy_oracle(rng, where):
+    """fp64 Planck lookup (a plain gather + blend) vs numpy, including
+    temperatures clamped at both ends of the table."""
+    dim, step, nlayer = 400, 5, 9
+    edges = np.geomspace(1e-5, 1e-2, 13)
+    grid = np.asarray(planck_mod.build_planck_table(
+        edges, np.diff(edges), T_star=5000.0, dim=dim, step=step))
+    T = np.concatenate([rng.uniform(1.0, dim * step, nlayer - 1),
+                        [dim * step + 500.0], [0.5]])
+    star = rng.uniform(1.0, 2.0, 12)
+    if where == "layers":
+        got = planck_mod.planckband_layers(
+            jnp.asarray(grid), jnp.asarray(T), jnp.asarray(star),
+            real_star=1, dim=dim, step=step)
+        want = np.concatenate([
+            _planck_lookup_oracle(grid, T[:nlayer], dim, step),
+            star[None] / np.pi,
+            _planck_lookup_oracle(grid, T[nlayer:], dim, step)])
+    else:
+        got = planck_mod.planckband_interfaces(
+            jnp.asarray(grid), jnp.asarray(T), dim=dim, step=step)
+        want = _planck_lookup_oracle(grid, T, dim, step)
+    assert got.dtype == jnp.float64 and got.shape == want.shape
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-14)
+
+
 def test_stellar_energy_correction():
     edges = np.geomspace(1e-6, 1.0, 3001)
     dl = np.diff(edges)

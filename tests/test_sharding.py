@@ -276,6 +276,25 @@ def test_ensemble_rejects_mismatched_phys(tmp_path):
         run_ensemble(cfgs, tables=[table, table], write_output=False)
 
 
+def test_ensemble_needs_enough_devices(tmp_path):
+    """A planet batch wider than the visible devices raises, as
+    pipeline.run does for spectral shards."""
+    from helios_tpu.parallel.ensemble import run_ensemble
+
+    table = synthetic_premixed_table(nbin=16, ny=4, ntemp=10, npress=8)
+    n = len(jax.devices()) + 1
+    cfgs = [HeliosConfig(name=f"p{i}", output_dir=str(tmp_path) + "/",
+                         planet="manual", g=2288.0, a=0.0153,
+                         R_planet=1.0, R_star=1.0, T_star=4000.0,
+                         T_intern=200.0, scattering="no", direct_beam="no",
+                         convection="no", run_type="iterative",
+                         iso_input="yes", nlayer=10, p_boa=1e8, p_toa=1e3,
+                         n_planet_batch=n)
+            for i in range(2)]
+    with pytest.raises(RuntimeError, match="devices"):
+        run_ensemble(cfgs, tables=[table, table], write_output=False)
+
+
 def test_ensemble_cli_end_to_end(tmp_path, capsys):
     """The planet-ensemble product surface: ONE CLI command + an
     ensemble override file runs N planets with per-planet outputs,

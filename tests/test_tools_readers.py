@@ -113,8 +113,12 @@ def test_rebin_spectrum_to_resolution():
     np.testing.assert_allclose(g[5:-5], 7.5, rtol=1e-6)
 
 
+PARAM_KTABLE = os.path.join(os.path.dirname(__file__), "data",
+                            "param_ktable.dat")
+
+
 def test_param_ktable_reference_file_parses():
-    p = parse_param_ktable_file("/root/reference/ktable/param_ktable.dat")
+    p = parse_param_ktable_file(PARAM_KTABLE)
     assert p.building == "yes" and p.mixing == "yes"
     assert p.format == "k-distribution"
     assert p.heliosk_format == "binary"
@@ -128,7 +132,7 @@ def test_param_ktable_reference_file_parses():
 
 def test_param_ktable_cli_overrides(tmp_path):
     p = read_param_file_and_command_line([
-        "-parameter_file", "/root/reference/ktable/param_ktable.dat",
+        "-parameter_file", PARAM_KTABLE,
         "-format", "sampling", "-number_of_gaussian_points", "31",
         "-units_of_mixed_opacity_table", "MKS",
         "-wavelength_grid", "100 0.5 20",
